@@ -1,4 +1,5 @@
-# Serving image (CPU JAX by default; swap the base/extra for TPU hosts).
+# Serving image: CPU JAX. GPU runs use a CUDA host with jax[cuda]
+# (see README: `python chip_smoke.py`).
 FROM python:3.11-slim
 
 ENV PYTHONUNBUFFERED=1 \

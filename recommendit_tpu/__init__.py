@@ -1,9 +1,9 @@
-"""recommendit_tpu — a TPU-native two-stage recommender framework.
+"""recommendit_tpu — a JAX two-stage recommender framework.
 
-A from-scratch JAX/XLA/Pallas/pjit re-design of the capabilities of the
+A from-scratch JAX/XLA/pjit re-design of the capabilities of the
 reference two-stage recommender (Two-Tower retrieval + learning-to-rank
-re-ranking over MovieLens-style data): pure-functional models, fused Pallas
-kernels for the in-batch BPR loss and blocked MIPS top-k retrieval, sharded
+re-ranking over MovieLens-style data): pure-functional models, a vectorized
+in-batch BPR loss and blocked MIPS top-k retrieval, sharded
 embedding tables and corpus over a ``jax.sharding.Mesh``, and a serving path
 where embed → retrieve → featurize → rank is a single jitted device call.
 """

@@ -1,4 +1,4 @@
-"""Central configuration for the TPU-native recommender framework.
+"""Central configuration for the recommender framework.
 
 Mirrors the knob surface of the reference settings object
 (``/root/reference/src/config.py:6-38``: 22 fields, env override, singleton)
@@ -189,8 +189,8 @@ class Settings:
     CTR_RETRIEVAL_WEIGHT: float = 0.5    # lambda on the in-batch softmax term
     CTR_SOFTMAX_TEMPERATURE: float = 0.1
     # Table update path: 'sparse' = rows-boundary grads + mixed per-field
-    # row-adagrad (215x the naive step at 1.1M-row tables on a v5e, see
-    # ops/sparse_embed.py); 'dense' = plain autodiff + adam over the table.
+    # row-adagrad (see ops/sparse_embed.py); 'dense' = plain autodiff +
+    # adam over the table.
     CTR_TABLE_UPDATE: str = "sparse"
     CTR_TABLE_LR: float = 0.05           # row-adagrad lr (sparse mode)
     CTR_SMALL_VOCAB_THRESHOLD: int = 4096
@@ -203,6 +203,7 @@ class Settings:
     # evaluate stage applies the same filter to ALL ladder rows when on.
     FILTER_SEEN: bool = True
     MICRO_BATCH: bool = False    # coalesce concurrent requests into one device call
+    # tuned on the previous accelerator, not yet measured on the H100
     MICRO_BATCH_MAX: int = 256
     MICRO_BATCH_WAIT_MS: float = 2.0
     # Re-measure the retrieval/ranking device-time split every N fused
@@ -210,7 +211,7 @@ class Settings:
     # See serving/recommender.py::recalibrate_stage_split.
     STAGE_RECAL_EVERY: int = 20_000
 
-    # --- Host-resident (>HBM) embedding tables (no reference equivalent;
+    # --- Host-resident (larger than device memory) embedding tables (no reference equivalent;
     # DLRM-style CPU offload — training/host_train.py) ---
     HOST_TABLE: bool = False             # offload embedding tables to host RAM
     HOST_TABLE_OPTIMIZER: str = "adagrad"  # adagrad | sgd (sparse row updates)
@@ -219,20 +220,22 @@ class Settings:
     HOST_TABLE_PREFETCH: int = 2         # gather/H2D double-buffer depth
     # (0 = fully synchronous updates)
 
-    # --- TPU-native knobs (no reference equivalent) ---
+    # --- Accelerator knobs (no reference equivalent) ---
     MESH_DATA_AXIS: str = "data"
     MESH_MODEL_AXIS: str = "model"
-    RETRIEVAL_BLOCK_ITEMS: int = 2048    # item block per streaming top-k step
-    RETRIEVAL_BLOCK_QUERIES: int = 256   # query tile for the MIPS kernel
-    # corpus storage dtype: float32 | bfloat16 (half HBM) | int8 (quarter
-    # HBM + int8 MXU path, stochastic-rounding per-row quantization)
+    # item block per streaming top-k step (tuned on the previous
+    # accelerator, not yet measured on the H100)
+    RETRIEVAL_BLOCK_ITEMS: int = 2048
+    RETRIEVAL_BLOCK_QUERIES: int = 256   # query tile for the MIPS scan
+    # corpus storage dtype: float32 | bfloat16 (half the memory) | int8
+    # (quarter memory + int8 matmul, stochastic-rounding per-row
+    # quantization)
     INDEX_DTYPE: str = "float32"
     # retrieval mode — the recall/speed knob the reference exposes as
     # FAISS_N_LISTS/N_PROBE (src/config.py:22-23, faiss_index.py:224):
     # exact | verified (certified-exact fast path) | approx
-    # (lax.approx_max_k) | fused (Pallas window kernel, 1M+ corpora)
+    # (lax.approx_max_k) | fused (window-segment maxima, 1M+ corpora)
     INDEX_MODE: str = "exact"
-    USE_PALLAS: bool = True              # use fused kernels when on TPU
     COMPUTE_DTYPE: str = "float32"       # 'bfloat16' on large configs
 
     @classmethod

@@ -10,7 +10,7 @@ report (:301-384).
 
 Implementations are vectorized numpy; a jnp batched evaluator
 (:func:`batch_rank_metrics`) evaluates thousands of users in one device
-call for on-TPU eval loops.
+call for on-device eval loops.
 """
 from __future__ import annotations
 

@@ -101,7 +101,7 @@ def encode_genres_matrix(genre_strs: Sequence[str]) -> np.ndarray:
 
 
 # ------------------------------------------------------------------ #
-# Packed dense tables (for on-TPU assembly)                            #
+# Packed dense tables (for on-device assembly)                         #
 # ------------------------------------------------------------------ #
 
 def pack_user_features(user_features: pd.DataFrame, n_users: int) -> np.ndarray:
@@ -176,13 +176,13 @@ GATHER_PAD_WIDTH = 64
 
 
 def pad_packed_width(table, width: int = GATHER_PAD_WIDTH):
-    """Zero-pad packed feature rows to a TPU-gather-friendly width.
+    """Zero-pad packed feature rows to a gather-friendly width.
 
-    Random row gathers on TPU are latency-bound per row, not
-    bandwidth-bound: (256x500 from 1M rows) measured 4.6 ms at the
-    natural 23-column width vs 2.07 ms at 64 columns (256-byte rows) —
-    the padding halves the serving featurize stage for 2.8x the table
-    bytes. ``assemble_packed_jnp`` accepts padded rows directly.
+    The 64-column (256-byte) row width was tuned on the previous
+    accelerator, where random row gathers were latency-bound per row; it
+    is not yet measured on the H100, whose 32-byte sectors read ~2.7x the
+    bytes the 23-column rows need. ``assemble_packed_jnp`` accepts padded
+    rows directly.
     """
     w = table.shape[-1]
     if w >= width:

@@ -12,7 +12,7 @@ Internally the backend choice is a strategy object (:class:`_RedisBackend`
 per-operation code has no redis/memory branching.
 
 Adds a packed-table export so serving can mirror the store into dense
-device arrays for on-TPU feature assembly, and a zero-copy mmap snapshot
+device arrays for on-device feature assembly, and a zero-copy mmap snapshot
 fallthrough (:meth:`FeatureStore.attach_snapshot`).
 """
 from __future__ import annotations

@@ -1,20 +1,20 @@
-"""Criteo-style CTR model — DLRM-shaped, TPU-first, with joint two-stage heads.
+"""Criteo-style CTR model — DLRM-shaped, with joint two-stage heads.
 
 BASELINE config #5: "Criteo-style CTR features + neural ranker jointly
 trained (stretch: end-to-end two-stage)". No reference equivalent exists
 (the reference is MovieLens-only); this is a green-field model family.
 
-TPU-first design choices:
+Design choices:
 * All 26 categorical fields share ONE stacked embedding table addressed by
   static per-field offsets — the whole sparse side is a single
   (B·26)-row gather instead of 26 small ones, and the table row-shards
   over the 'model' mesh axis exactly like the two-tower tables
   (``recommendit_tpu.parallel.embedding``).
 * Feature interactions are the DLRM pairwise-dot block computed as one
-  batched (F+1, D)x(D, F+1) matmul on the MXU (``einsum bfd,bgd->bfg``);
+  batched (F+1, D)x(D, F+1) matmul (``einsum bfd,bgd->bfg``);
   the strictly-upper triangle is extracted with a static index gather —
   no dynamic shapes, everything jit-traceable once.
-* Optional bfloat16 compute: params stay f32, matmuls run bf16 on the MXU.
+* Optional bfloat16 compute: params stay f32, matmuls run in bf16.
 
 Joint two-stage: the SAME stacked table feeds (a) the DLRM CTR ranker over
 all fields and (b) two retrieval towers (mean-pooled user-field /
@@ -168,7 +168,7 @@ def ctr_forward_from_embed(
         params["bot_w2"].astype(cdt), params["bot_b2"].astype(cdt),
     )  # (B, D)
     z = jnp.concatenate([d[:, None, :], field_emb.astype(cdt)], axis=1)
-    # pairwise dots on the MXU: (B, F+1, F+1)
+    # pairwise dots as one batched matmul: (B, F+1, F+1)
     s = jnp.einsum("bfd,bgd->bfg", z, z,
                    preferred_element_type=jnp.float32)
     iu, ig = _interaction_indices(z.shape[1])

@@ -8,7 +8,7 @@ shrinkage, feature subsampling, early stopping on validation NDCG@10.
 
 Training is host-side numpy (tree growth is inherently sequential control
 flow); **inference is jittable**: the ensemble is exported to flat arrays
-(feature / threshold-bin / children / leaf values) and evaluated on TPU as
+(feature / threshold-bin / children / leaf values) and evaluated on device as
 a fixed-depth vectorized descent over all trees — batched scoring of 500
 candidates is a handful of gathers per level.
 

@@ -7,12 +7,12 @@ NDCG@[5,10,20] eval (:115-129), early stopping on validation NDCG (:137),
 ``top_features`` (:180-197), text/weights persistence (:203-226),
 ``model_info`` (:238).
 
-Design (TPU-first): an MLP scorer over the 50-feature contract trained with
+Design: an MLP scorer over the 50-feature contract trained with
 the LambdaRank pairwise objective — softplus pairwise logistic loss weighted
 by |ΔNDCG| computed from stop-gradient ranks (Burges et al., "From RankNet
 to LambdaRank to LambdaMART"). Ragged query groups are packed into fixed
 (G,) masked chunks so the whole training step is a static-shape jitted scan;
-scoring 500 candidates is a single fused matmul chain on the MXU instead of
+scoring 500 candidates is a single fused matmul chain on device instead of
 a C++ tree-ensemble traversal.
 """
 from __future__ import annotations
@@ -203,18 +203,30 @@ def group_ndcg_at_k(scores, gains, mask, k: int):
 
 def per_query_normalize(X: np.ndarray, q: np.ndarray) -> np.ndarray:
     """Standardize each feature within its query group (host-side,
-    vectorized with bincount/add.at — no per-query Python loop)."""
+    vectorized with bincount/add.at — no per-query Python loop).
+
+    Values are shifted by the group's first row before the mean is taken
+    (the shifted-data variance), so a feature constant within a group —
+    every user-level column — normalizes to exactly 0 instead of to the
+    rounding residue of its mean divided by the 1e-6 floor, which would
+    depend on the summation order and so on the device."""
     n_q = int(q.max()) + 1 if len(q) else 0
+    if n_q == 0:
+        return X.astype(np.float32)
+    first = np.zeros(n_q, np.int64)
+    uniq, idx = np.unique(q, return_index=True)
+    first[uniq] = idx
+    D = X.astype(np.float32) - X[first[q]].astype(np.float32)
     counts = np.maximum(
         np.bincount(q, minlength=n_q).astype(np.float32), 1.0
     )[:, None]
     sums = np.zeros((n_q, X.shape[1]), np.float32)
-    np.add.at(sums, q, X)
+    np.add.at(sums, q, D)
     means = sums / counts
     sq = np.zeros_like(sums)
-    np.add.at(sq, q, (X - means[q]) ** 2)
+    np.add.at(sq, q, (D - means[q]) ** 2)
     std = np.sqrt(sq / counts) + 1e-6
-    return (X - means[q]) / std[q]
+    return (D - means[q]) / std[q]
 
 
 # ------------------------------------------------------------------ #
@@ -505,6 +517,9 @@ class LambdaRankScorer:
         def score(x: jnp.ndarray) -> jnp.ndarray:
             h = (x - mean) / std
             if qn:
+                # shifted by the set's first row, as per_query_normalize:
+                # constant features normalize to exactly 0 on any device
+                h = h - h[..., :1, :]
                 m = h.mean(axis=-2, keepdims=True)
                 s = h.std(axis=-2, keepdims=True) + 1e-6
                 h = (h - m) / s

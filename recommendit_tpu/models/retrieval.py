@@ -1,16 +1,15 @@
-"""On-chip exact MIPS retrieval index.
+"""On-device exact MIPS retrieval index.
 
 Replaces the reference FAISS IVFFlat wrapper (``src/models/faiss_index.py``)
-with a device-resident item matrix scanned exactly by the blocked MXU kernel
-(``recommendit_tpu.ops.topk``). Public surface parity: build (:45-82),
+with a device-resident item matrix scanned exactly by the blocked matmul
+top-k (``recommendit_tpu.ops.topk``). Public surface parity: build (:45-82),
 search with query normalization + k capping + id mapping (:88-124),
 batch_search (:126-153), save/load with metadata (:159-205), stats (:211).
 
 The IVF recall knobs (n_lists/n_probe, reference :224) are intentionally
-gone: the full-corpus scan is exact, so recall == 1.0 by construction at
-higher QPS on TPU than an IVF probe on CPU. For corpora beyond one chip's
-HBM, the sharded variant in ``recommendit_tpu.parallel.retrieval`` splits
-rows across the mesh.
+gone: the full-corpus scan is exact, so recall == 1.0 by construction. For
+corpora beyond one device's memory, the sharded variant in
+``recommendit_tpu.parallel.retrieval`` splits rows across the mesh.
 """
 from __future__ import annotations
 
@@ -23,7 +22,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from recommendit_tpu.ops.topk import mips_topk
+from recommendit_tpu.ops.topk import (
+    mips_topk,
+    mips_topk_certified,
+    mips_topk_int8,
+    mips_topk_window_auto,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -45,9 +49,12 @@ class MIPSIndex:
         quant_seed: int = 0,
     ):
         """Args:
+            mode: 'exact' | 'verified' (certified exact) | 'approx'
+                (``approx_max_k``) | 'fused' (window-segment maxima,
+                :func:`~recommendit_tpu.ops.topk.mips_topk_window_auto`).
             dtype: corpus storage dtype — 'float32', 'bfloat16' (halves
-                HBM; scores still accumulate f32 on the MXU) or 'int8'
-                (quarter HBM + int8 MXU path; per-row symmetric scales
+                device memory; scores still accumulate in f32) or 'int8'
+                (quarter memory + int8 matmul; per-row symmetric scales
                 with stochastic rounding, seeded by ``quant_seed``).
         """
         if dtype not in ("float32", "bfloat16", "int8"):
@@ -91,7 +98,7 @@ class MIPSIndex:
         learned popularity bias, pre-scaled by the softmax temperature.
         Stored as an extra matrix column so the score ``q·e + b`` is ONE
         MIPS dot against ``[q, 1]``; every search path (exact / windowed /
-        approx / int8 / fused Pallas / sharded ring) handles it untouched.
+        approx / int8 / fused window / sharded ring) handles it untouched.
         """
         if embeddings.ndim != 2 or embeddings.shape[1] != self.embedding_dim:
             raise ValueError(
@@ -116,26 +123,10 @@ class MIPSIndex:
                 jnp.asarray(embs),
                 jax.random.PRNGKey(self.quant_seed),
             )
-            if self.mode == "fused":
-                # block-pad the QUANTIZED corpus (zero rows, zero scales)
-                # so the int8 window kernel never re-pads per call
-                pad = (-self._embs.shape[0]) % self.block_size
-                if pad:
-                    self._embs = jnp.pad(self._embs, ((0, pad), (0, 0)))
-                    self._scales = jnp.pad(self._scales, (0, pad))
         else:
             dev_dtype = (
                 jnp.bfloat16 if self.dtype == "bfloat16" else jnp.float32
             )
-            if self.mode == "fused":
-                # pad rows ONCE to a kernel-block multiple so the jitted
-                # searcher never re-pads per call (the fused kernel masks
-                # padded rows by index; see ops/pallas_mips.py)
-                pad = (-len(embs)) % self.block_size
-                if pad:
-                    embs = np.concatenate(
-                        [embs, np.zeros((pad, embs.shape[1]), embs.dtype)]
-                    )
             self._embs = jnp.asarray(embs, dev_dtype)
         self._ids_dev = jnp.asarray(self.item_ids, jnp.int32)
         logger.info(
@@ -193,81 +184,37 @@ class MIPSIndex:
     def search_device_positions(self, queries: jnp.ndarray, k: int):
         """Like :meth:`search_device` but returns corpus POSITIONS instead
         of item ids (the fused serve fn gathers ids itself)."""
-        queries = self._augment(queries)
-        if self.dtype == "int8":
-            if self.mode == "fused":
-                import jax
+        return self.make_device_searcher(k)(queries, self.device_corpus)
 
-                from recommendit_tpu.ops.pallas_mips import (
-                    mips_topk_fused_auto,
-                )
-
-                interpret = jax.devices()[0].platform != "tpu"
-                return mips_topk_fused_auto(
-                    queries, self._embs, k, self.block_size, interpret,
-                    "default", self.n_total, self._scales)
-            from recommendit_tpu.ops.topk import mips_topk_int8
-
-            return mips_topk_int8(queries, self._embs, self._scales, k,
-                                  self.block_size, self.mode)
-        if self.mode == "verified":
-            # certified-exact: verified two-pass fast path, lax.cond
-            # escalation to the windowed exact path on certificate failure
-            # — recall 1.0 always, near-approx speed in the common case
-            from recommendit_tpu.ops.topk import mips_topk_certified
-
-            return mips_topk_certified(queries, self._embs, k,
-                                       self.block_size)
-        if self.mode == "fused":
-            import jax
-
-            from recommendit_tpu.ops.pallas_mips import mips_topk_fused_auto
-
-            interpret = jax.devices()[0].platform != "tpu"
-            return mips_topk_fused_auto(queries, self._embs, k,
-                                        self.block_size, interpret,
-                                        n_valid=self.n_total)
-        return mips_topk(queries, self._embs, k, self.block_size, self.mode)
+    @property
+    def device_corpus(self):
+        """``(embs, scales)`` on device (``scales`` is None unless int8):
+        the second argument of :meth:`make_device_searcher`'s fn."""
+        return self._embs, self._scales
 
     def make_device_searcher(self, k: int):
-        """Closure-safe retrieval fn for jitted serving:
-        (Q, D) queries → (scores (Q,k), positions (Q,k))."""
-        embs, scales = self._embs, self._scales
-        block, mode, dtype = self.block_size, self.mode, self.dtype
+        """Retrieval fn for jitted serving: ``(queries (Q, D), corpus)`` →
+        (scores (Q,k), positions (Q,k)), with ``corpus`` =
+        :attr:`device_corpus`. The corpus is an argument, never a closure
+        constant: a jitted closure over it would bake the whole corpus into
+        the executable."""
+        block, mode = self.block_size, self.mode
         aug = self._augment
 
-        if dtype == "int8":
+        if self.dtype == "int8":
             if mode == "fused":
-                import jax
-
-                from recommendit_tpu.ops.pallas_mips import (
-                    mips_topk_fused_auto,
-                )
-
-                interpret = jax.devices()[0].platform != "tpu"
-                n_valid = self.n_total
-                return lambda q: mips_topk_fused_auto(
-                    aug(q), embs, k, block, interpret, "default",
-                    n_valid, scales)
-            from recommendit_tpu.ops.topk import mips_topk_int8
-
-            return lambda q: mips_topk_int8(aug(q), embs, scales, k, block,
-                                            mode)
+                return lambda q, c: mips_topk_window_auto(aug(q), c[0], k,
+                                                          c[1])
+            return lambda q, c: mips_topk_int8(aug(q), c[0], c[1], k, block,
+                                               mode)
         if mode == "verified":
-            from recommendit_tpu.ops.topk import mips_topk_certified
-
-            return lambda q: mips_topk_certified(aug(q), embs, k, block)
+            # certified-exact: verified two-pass fast path, lax.cond
+            # escalation to the windowed exact path on certificate failure
+            # — recall 1.0 always
+            return lambda q, c: mips_topk_certified(aug(q), c[0], k, block)
         if mode == "fused":
-            import jax
-
-            from recommendit_tpu.ops.pallas_mips import mips_topk_fused_auto
-
-            interpret = jax.devices()[0].platform != "tpu"
-            n_valid = self.n_total
-            return lambda q: mips_topk_fused_auto(aug(q), embs, k, block,
-                                                  interpret,
-                                                  n_valid=n_valid)
-        return lambda q: mips_topk(aug(q), embs, k, block, mode)
+            return lambda q, c: mips_topk_window_auto(aug(q), c[0], k)
+        return lambda q, c: mips_topk(aug(q), c[0], k, block, mode)
 
     # ------------------------------------------------------------------ #
     # Persistence                                                          #
@@ -330,8 +277,10 @@ class MIPSIndex:
         with np.load(p) as data:
             if "embeddings_i8" in data.files:
                 idx.item_ids = np.asarray(data["item_ids"], np.int64)
-                idx._embs = jnp.asarray(data["embeddings_i8"], jnp.int8)
-                idx._scales = jnp.asarray(data["scales"], jnp.float32)
+                # files from older builds may hold zero pad rows past n
+                n = len(idx.item_ids)
+                idx._embs = jnp.asarray(data["embeddings_i8"][:n], jnp.int8)
+                idx._scales = jnp.asarray(data["scales"][:n], jnp.float32)
                 idx._ids_dev = jnp.asarray(idx.item_ids, jnp.int32)
                 if "bias" in data.files:
                     idx._bias_np = np.asarray(data["bias"], np.float32)
@@ -355,8 +304,7 @@ class MIPSIndex:
             "mode": self.mode,
             "dtype": self.dtype,
             "has_bias": self.has_bias,
-            # int8 ranking error is bounded by the quantization step;
-            # measured recall@500 >= 0.99 on normalized tower embeddings
+            # int8 ranking error is bounded by the quantization step
             "recall": 1.0
             if self.mode in ("exact", "verified") and self.dtype != "int8"
             else None,

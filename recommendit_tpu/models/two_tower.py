@@ -6,14 +6,13 @@ user tower = Embedding → MLP → L2-normalize (:19-42), item tower = Embedding
 (:117-130), in-batch BPR loss (:132-160), single-user / batched catalog
 embedding (:166-213), checkpoint save/load (:216-251).
 
-Design differences (TPU-first):
+Design differences:
 * Parameters are a plain pytree of ``jnp`` arrays — shardable with
   ``jax.sharding`` PartitionSpecs, donate-able, and friendly to ``pjit``.
 * All compute paths are jittable pure functions; dropout takes an explicit
   PRNG key.
 * The in-batch BPR loss is fully vectorized (the reference loops over the
-  batch in Python, ``two_tower.py:151-160``) and has a fused Pallas kernel
-  (``recommendit_tpu.ops.bpr``).
+  batch in Python, ``two_tower.py:151-160``; ``recommendit_tpu.ops.bpr``).
 """
 from __future__ import annotations
 
@@ -86,7 +85,7 @@ def l2_normalize(x: jnp.ndarray, axis: int = -1, eps: float = 1e-12) -> jnp.ndar
 def _mlp(x, w1, b1, w2, b2, dropout_rate: float, rng: Optional[jax.Array],
          compute_dtype=None):
     """MLP head; optional reduced-precision compute (params stay f32,
-    matmuls run in e.g. bfloat16 on the MXU, output returns to f32 before
+    matmuls run in e.g. bfloat16, output returns to f32 before
     normalization)."""
     if compute_dtype is not None:
         x = x.astype(compute_dtype)

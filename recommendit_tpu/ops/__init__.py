@@ -1,15 +1,11 @@
 from recommendit_tpu.ops.bpr import (  # noqa: F401
     in_batch_bpr_loss,
-    in_batch_bpr_loss_xla,
-    in_batch_bpr_pallas,
     in_batch_softmax_loss,
     pairwise_bpr_loss,
 )
-from recommendit_tpu.ops.pallas_mips import mips_topk_fused  # noqa: F401
 from recommendit_tpu.ops.quantize import (  # noqa: F401
     dequantize_int8,
     quantize_int8_jnp,
-    quantize_int8_pallas,
 )
 from recommendit_tpu.ops.topk import (  # noqa: F401
     fast_topk,
@@ -20,6 +16,8 @@ from recommendit_tpu.ops.topk import (  # noqa: F401
     mips_topk_int8,
     mips_topk_numpy,
     mips_topk_verified,
+    mips_topk_window,
+    mips_topk_window_auto,
 )
 from recommendit_tpu.ops.sparse_embed import (  # noqa: F401
     field_split,

@@ -1,16 +1,10 @@
-"""BPR losses — vectorized XLA reference + fused Pallas TPU kernel.
+"""BPR and in-batch softmax losses.
 
 The reference computes the in-batch BPR loss with a Python loop over the
 batch building a fresh bool mask per row (``src/models/two_tower.py:132-160``)
-— untraceable and O(B) kernel launches. Here:
-
-* :func:`in_batch_bpr_loss_xla` — one (B,B) matmul + masked softplus, fully
-  fused by XLA; the correctness reference.
-* :func:`in_batch_bpr_pallas` — Pallas kernel computing scores + diagonal
-  extraction + masked softplus row-means in VMEM without materializing the
-  (B,B) score matrix in HBM. Custom VJP with a closed-form backward
-  (two matmuls on the sigmoid-weighted gradient matrix).
-* :func:`in_batch_bpr_loss` — dispatcher (Pallas on TPU, XLA elsewhere).
+— untraceable and O(B) kernel launches. Here :func:`in_batch_bpr_loss`
+is one (B,B) matmul + masked softplus, fused by XLA, differentiated by
+autodiff.
 
 Math: with s = U Vᵀ (rows L2-normalized upstream), margins m_ij = s_ii −
 s_ij, the loss is  L = Σ_{i≠j} softplus(−m_ij) / (B(B−1)) and the score
@@ -19,12 +13,8 @@ gradient is  ∂L/∂s_ij = σ(−m_ij)/(B(B−1)) for i≠j,
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def pairwise_bpr_loss(user_emb, pos_item_emb, neg_item_emb):
@@ -35,8 +25,9 @@ def pairwise_bpr_loss(user_emb, pos_item_emb, neg_item_emb):
     return -jnp.mean(jax.nn.log_sigmoid(pos - neg))
 
 
-def in_batch_bpr_loss_xla(user_emb, item_emb):
-    """Vectorized in-batch BPR (diagonal positives, all others negatives)."""
+def in_batch_bpr_loss(user_emb, item_emb):
+    """Vectorized in-batch BPR (diagonal positives, all others negatives):
+    the ``loss_mode='in_batch'`` objective."""
     b = user_emb.shape[0]
     scores = jnp.dot(user_emb, item_emb.T, preferred_element_type=jnp.float32)
     pos = jnp.diagonal(scores)
@@ -44,172 +35,6 @@ def in_batch_bpr_loss_xla(user_emb, item_emb):
     sp = jax.nn.softplus(-margins)
     off_diag = 1.0 - jnp.eye(b, dtype=sp.dtype)
     return (sp * off_diag).sum() / (b * (b - 1))
-
-
-# ------------------------------------------------------------------ #
-# Pallas fused forward                                                 #
-# ------------------------------------------------------------------ #
-
-def _bpr_row_loss_kernel(u_ref, v_ref, out_ref):
-    """Per-row in-batch BPR losses for one i-block against the full batch.
-
-    out[r] = Σ_{j≠i(r)} softplus(−(s_ii − s_ij)) / (B−1)
-    """
-    g = pl.program_id(0)
-    blk = u_ref.shape[0]
-    b = v_ref.shape[0]
-
-    scores = jnp.dot(
-        u_ref[:], v_ref[:].T, preferred_element_type=jnp.float32
-    )  # (blk, B)
-
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (blk, b), dimension=1)
-    row_global = g * blk + jax.lax.broadcasted_iota(
-        jnp.int32, (blk, b), dimension=0
-    )
-    diag = col_ids == row_global
-
-    pos = jnp.sum(jnp.where(diag, scores, 0.0), axis=1, keepdims=True)  # (blk,1)
-    sp = jax.nn.softplus(scores - pos)  # softplus(-(pos - s_ij))
-    sp = jnp.where(diag, 0.0, sp)
-    out_ref[:] = jnp.sum(sp, axis=1, keepdims=True) / (b - 1)
-
-
-def _bpr_forward_pallas(user_emb, item_emb, block_rows: int, interpret: bool):
-    b, d = user_emb.shape
-    blk = min(block_rows, b)
-    grid = pl.cdiv(b, blk)
-    row_losses = pl.pallas_call(
-        _bpr_row_loss_kernel,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((blk, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((blk, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, 1), jnp.float32),
-        interpret=interpret,
-    )(user_emb, item_emb)
-    return jnp.mean(row_losses)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def in_batch_bpr_pallas(user_emb, item_emb, block_rows: int = 512,
-                        interpret: bool = False):
-    return _bpr_forward_pallas(user_emb, item_emb, block_rows, interpret)
-
-
-def _bpr_fwd(user_emb, item_emb, block_rows, interpret):
-    return (
-        _bpr_forward_pallas(user_emb, item_emb, block_rows, interpret),
-        (user_emb, item_emb),
-    )
-
-
-def _bpr_bwd_xla(u, v, g):
-    """XLA backward (correctness reference; materializes (B,B) twice)."""
-    b = u.shape[0]
-    scores = jnp.dot(u, v.T, preferred_element_type=jnp.float32)
-    pos = jnp.diagonal(scores)
-    sig = jax.nn.sigmoid(scores - pos[:, None])  # σ(−m_ij)
-    off = 1.0 - jnp.eye(b, dtype=sig.dtype)
-    grad_s = sig * off / (b * (b - 1))
-    grad_s = grad_s - jnp.diag(grad_s.sum(axis=1))
-    du = (g * grad_s) @ v
-    dv = (g * grad_s).T @ u
-    return du.astype(u.dtype), dv.astype(v.dtype)
-
-
-def _bpr_bwd_kernel(u_blk_ref, v_ref, u_full_ref, du_ref, dv_ref):
-    """One i-block of the backward: recompute scores on the MXU, weight
-    with σ(−m), emit this block's du and accumulate the full dv — the
-    (B,B) sigmoid matrix lives only in VMEM (the XLA VJP's remaining
-    HBM traffic, docs/KERNELS.md "remaining headroom").
-
-    du_i = Σ_{j≠i} σ_ij v_j − (Σ_{j≠i} σ_ij) v_i
-    dv_j = Σ_{i≠j} σ_ij u_i − (Σ_{k≠j} σ_jk) u_j   (second term applied
-          by the grid step owning row j)
-    Scaling by g/(B(B−1)) happens host-side on the small outputs.
-    """
-    grid_step = pl.program_id(0)
-    blk = u_blk_ref.shape[0]
-    b = v_ref.shape[0]
-
-    scores = jnp.dot(
-        u_blk_ref[:], v_ref[:].T, preferred_element_type=jnp.float32
-    )  # (blk, B)
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (blk, b), dimension=1)
-    row_global = grid_step * blk + jax.lax.broadcasted_iota(
-        jnp.int32, (blk, b), dimension=0
-    )
-    diag = col_ids == row_global
-    pos = jnp.sum(jnp.where(diag, scores, 0.0), axis=1, keepdims=True)
-    sig = jax.nn.sigmoid(scores - pos)          # σ(−m_ij)
-    sig = jnp.where(diag, 0.0, sig)             # zero the diagonal
-    rowsum = jnp.sum(sig, axis=1, keepdims=True)  # (blk, 1)
-
-    v_blk = v_ref[pl.ds(grid_step * blk, blk), :]
-    du_ref[:] = (
-        jnp.dot(sig, v_ref[:], preferred_element_type=jnp.float32)
-        - rowsum * v_blk
-    )
-
-    @pl.when(grid_step == 0)
-    def _():
-        dv_ref[:] = jnp.zeros_like(dv_ref)
-
-    dv_ref[:] += jax.lax.dot_general(
-        sig, u_blk_ref[:],
-        dimension_numbers=(((0,), (0,)), ((), ())),  # sigᵀ @ u_blk
-        preferred_element_type=jnp.float32,
-    )
-    u_blk = u_full_ref[pl.ds(grid_step * blk, blk), :]
-    dv_ref[pl.ds(grid_step * blk, blk), :] += -rowsum * u_blk
-
-
-def _bpr_bwd_pallas(u, v, g, block_rows: int, interpret: bool):
-    b, d = u.shape
-    blk = min(block_rows, b)
-    if b % blk:
-        # ragged tail: the dv tail write would clamp out-of-bounds on
-        # TPU (dynamic-slice semantics); the XLA backward handles it
-        return _bpr_bwd_xla(u, v, g)
-    grid = pl.cdiv(b, blk)
-    du, dv = pl.pallas_call(
-        _bpr_bwd_kernel,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((blk, d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, d), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, d), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((blk, d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            # constant index map → the dv block persists in VMEM across
-            # grid steps and accumulates
-            pl.BlockSpec((b, d), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, d), jnp.float32),
-            jax.ShapeDtypeStruct((b, d), jnp.float32),
-        ],
-        interpret=interpret,
-    )(u, v, u)
-    scale = g / (b * (b - 1))
-    return (du * scale).astype(u.dtype), (dv * scale).astype(v.dtype)
-
-
-def _bpr_bwd(block_rows, interpret, res, g):
-    u, v = res
-    return _bpr_bwd_pallas(u, v, g, block_rows, interpret)
-
-
-in_batch_bpr_pallas.defvjp(_bpr_fwd, _bpr_bwd)
 
 
 def in_batch_softmax_loss(
@@ -249,19 +74,3 @@ def in_batch_softmax_loss(
         scores = scores - log_q[None, :]
     log_probs = jax.nn.log_softmax(scores, axis=1)
     return -jnp.mean(jnp.diagonal(log_probs))
-
-
-def on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
-def in_batch_bpr_loss(user_emb, item_emb, use_pallas: bool | None = None):
-    """In-batch BPR loss; fused Pallas kernel on TPU, XLA elsewhere."""
-    if use_pallas is None:
-        use_pallas = on_tpu()
-    if use_pallas:
-        return in_batch_bpr_pallas(user_emb, item_emb)
-    return in_batch_bpr_loss_xla(user_emb, item_emb)

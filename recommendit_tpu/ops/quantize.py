@@ -1,19 +1,15 @@
 """Int8 corpus quantization with stochastic rounding.
 
-The retrieval scan is HBM-bandwidth bound at large corpus sizes: at
+The retrieval scan is memory-bandwidth bound at large corpus sizes: at
 1M x 128 x f32 every full sweep reads 512 MB. Storing the corpus int8
-cuts the bytes 4x and moves the matmul to the MXU's int8 path; per-row
+cuts the bytes 4x and moves the matmul to the int8 path; per-row
 symmetric scales restore magnitude at O(N) extra reads. Stochastic
 rounding keeps the quantizer unbiased (E[q] = x/scale), which matters
 because retrieval compares scores ACROSS items — a biased rounder would
 systematically favor items whose coordinates land near round-up
 boundaries.
 
-Two implementations with identical semantics:
-- ``quantize_int8_jnp`` — pure jnp (any backend; used on CPU/serving hosts)
-- ``quantize_int8_pallas`` — Pallas TPU kernel using the on-chip PRNG
-  (``pltpu.prng_random_bits`` + ``pltpu.stochastic_round``), one grid row
-  block per step so arbitrarily large corpora stream through VMEM.
+``quantize_int8_jnp`` runs once per index build, off the serving path.
 
 No reference equivalent: FAISS IVFFlat (``src/models/faiss_index.py``)
 stores full f32 vectors; the quantized-index analogue there would be a
@@ -55,77 +51,6 @@ def quantize_int8_jnp(
     else:
         q = jnp.round(scaled)
     return jnp.clip(q, -127, 127).astype(jnp.int8), scales
-
-
-def _quantize_kernel(x_ref, seed_ref, vals_ref, scales_ref):
-    # Counter-based hash RNG (xorshift-multiply over the element's global
-    # index): identical bits on Mosaic and in interpret mode, no per-core
-    # PRNG state — the quantized corpus is bit-reproducible across
-    # backends for a given seed. (pltpu.prng_random_bits has no CPU
-    # interpret lowering in this JAX, and per-core state would tie the
-    # output to the grid schedule.)
-    import jax.experimental.pallas as pl
-
-    i = pl.program_id(0)
-    x = x_ref[:]
-    abs_max = jnp.max(jnp.abs(x), axis=-1, keepdims=True)
-    scale = jnp.maximum(abs_max, 1e-12) / 127.0
-    scaled = x / scale
-    rb, d = x.shape
-    row = jax.lax.broadcasted_iota(jnp.uint32, (rb, d), 0)
-    col = jax.lax.broadcasted_iota(jnp.uint32, (rb, d), 1)
-    idx = (jnp.uint32(i) * jnp.uint32(rb) + row) * jnp.uint32(d) + col
-    seed = seed_ref[0].astype(jnp.uint32)
-    h = idx ^ (seed * jnp.uint32(0x9E3779B9))
-    h = (h ^ (h >> 16)) * jnp.uint32(0x7FEB352D)
-    h = (h ^ (h >> 15)) * jnp.uint32(0x846CA68B)
-    h = h ^ (h >> 16)
-    # stochastic floor: u in [0,1) from the top 24 bits
-    u = (h >> 8).astype(jnp.float32) * (1.0 / (1 << 24))
-    q = jnp.clip(jnp.floor(scaled + u), -127.0, 127.0)
-    vals_ref[:] = q.astype(jnp.int8)
-    scales_ref[:] = scale[:, 0]
-
-
-def quantize_int8_pallas(
-    x: jnp.ndarray,
-    seed: int = 0,
-    row_block: int = 1024,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Pallas TPU version of :func:`quantize_int8_jnp` (stochastic only).
-
-    Streams (row_block, D) tiles through VMEM; each grid step seeds the
-    hardware PRNG with ``seed + step`` so the stream is deterministic per
-    (seed, shape) yet uncorrelated across blocks.
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, d = x.shape
-    rb = min(row_block, n)
-    pad = (-n) % rb
-    if pad:
-        x = jnp.pad(x, ((0, pad), (0, 0)))
-    grid = (x.shape[0] // rb,)
-    vals, scales = pl.pallas_call(
-        _quantize_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((rb, d), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((rb, d), lambda i: (i, 0)),
-            pl.BlockSpec((rb,), lambda i: (i,)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct(x.shape, jnp.int8),
-            jax.ShapeDtypeStruct((x.shape[0],), jnp.float32),
-        ],
-        interpret=interpret,
-    )(x, jnp.asarray([seed], jnp.int32))
-    return vals[:n], scales[:n]
 
 
 def dequantize_int8(vals: jnp.ndarray, scales: jnp.ndarray) -> jnp.ndarray:

@@ -1,18 +1,18 @@
 """MIPS (maximum inner-product search) top-k.
 
 Replaces the reference's FAISS IVFFlat probe (``src/models/faiss_index.py``)
-with an exact MXU-first scan. Exact mode scores the corpus with true-f32
+with an exact matmul-first scan. Exact mode scores the corpus with true-f32
 matmuls and selects via **window-max pruning** (`_windowed_exact_topk`): a
 cheap per-64-item-window max pass finds the <=k windows that can possibly
 hold top-k items, only those windows' scores are gathered and reduced — so
-the selection cost is O(N/64 + k*64) instead of a full-width top-k, which
-falls off a PartialReduce cliff above ~16k-wide rows. Exact MIPS ≥ IVF
-recall by construction (intentional behavior difference; the
-n_lists/n_probe recall knobs become unnecessary), and unlike IVF the
+the selection cost is O(N/64 + k*64) instead of one full-width top-k.
+Exact MIPS ≥ IVF recall by construction (intentional behavior difference;
+the n_lists/n_probe recall knobs become unnecessary), and unlike IVF the
 pruning is lossless for any input.
 
-Also provides ``approx`` mode via ``jax.lax.approx_max_k`` — the TPU-native
-recall-targeted top-k — when a recall-0.95 contract is acceptable, and two
+Also provides ``approx`` mode via ``jax.lax.approx_max_k`` (recall-targeted
+top-k) when a recall-0.95 contract is acceptable, the window-segment
+engine (:func:`mips_topk_window`, ``MIPSIndex(mode="fused")``), and two
 certified-exact variants: ``mips_topk_certified(method='count')`` (default;
 recall-targeted prefilter + count-above certificate) and ``method='bound'``
 (ONE bf16-precision full pass + exact rescore of the candidates, certified
@@ -35,10 +35,11 @@ import jax.numpy as jnp
 
 logger = logging.getLogger(__name__)
 
-# Exact modes score with true-f32 MXU matmuls (multi-pass bf16): the TPU's
-# default matmul precision is bfloat16-grade, whose score noise reorders
-# deep-top-k tails — "exact" here means exact w.r.t. f32 scores, so every
-# exact-path dot pins precision=HIGHEST. Approx mode keeps the fast default.
+# Exact modes score with true-f32 matmuls: a backend's default matmul
+# precision may be reduced (TF32 on the GPU's tensor cores), whose score
+# noise reorders deep-top-k tails — "exact" here means exact w.r.t. f32
+# scores, so every exact-path dot pins precision=HIGHEST. Approx and window
+# modes keep the fast default.
 _EXACT = jax.lax.Precision.HIGHEST
 
 
@@ -49,36 +50,22 @@ def _score(queries, items_t, precision):
 
 
 def fast_topk(scores, k: int, recall_target: float = 1.0):
-    """Top-k via ``lax.approx_max_k`` — on TPU this lowers to the
-    PartialReduce unit and, with ``recall_target=1.0``, is EXACT while
-    ~18x faster than the sort-based ``lax.top_k`` at (256, 4k) shapes
-    (verified element-identical on TPU and CPU). recall_target < 1 trades
-    recall for speed on huge rows."""
+    """Top-k via ``lax.approx_max_k``. With ``recall_target=1.0`` it is
+    EXACT on every backend; on the GPU and CPU XLA lowers it to an exact
+    top-k whatever the target, so recall_target < 1 trades recall for
+    speed only where the backend has an approximate reduction."""
     return jax.lax.approx_max_k(scores, k, recall_target=recall_target)
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 4))
-def mips_topk_dense(queries, item_embs, k: int, recall_target: float = 1.0,
-                    n_valid: int | None = None):
-    """Single-shot top-k: one matmul + partial reduce over the full score
-    matrix. Exact at recall_target=1.0 (fast up to ~10^4-item rows, f32
-    scoring); recall_target<1 engages the O(N) PartialReduce at default
-    matmul precision and is the production mode for very large corpora
-    (55k QPS at 1M x 128 on one v5e).
-
-    ``n_valid``: number of real corpus rows when the caller pre-padded
-    ``item_embs`` (the fused-index storage layout); the padded tail is
-    masked with one small static update-slice (pad < block columns)."""
-
-    def _mask_tail(scores):
-        if n_valid is not None and n_valid < scores.shape[1]:
-            return scores.at[:, n_valid:].set(-jnp.inf)
-        return scores
-
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def mips_topk_dense(queries, item_embs, k: int, recall_target: float = 1.0):
+    """Single-shot top-k: one matmul + top-k over the full score matrix.
+    Exact at recall_target=1.0 (f32 scoring); recall_target<1 scores at
+    default matmul precision (the approx mode)."""
     if recall_target >= 1.0:
-        scores = _mask_tail(_score(queries, item_embs.T, _EXACT))
+        scores = _score(queries, item_embs.T, _EXACT)
         return _chunked_exact_reduce(scores, k)
-    scores = _mask_tail(_score(queries, item_embs.T, None))
+    scores = _score(queries, item_embs.T, None)
     return fast_topk(scores, k, recall_target)
 
 
@@ -89,15 +76,11 @@ def _scan_topk(
     block_size: int,
     recall_target: float,
     precision=None,
-    n_valid: int | None = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Streaming blocked top-k: per-block matmul + partial reduce, running
-    exact merge. The full (Q, N) score matrix never materializes.
-    ``n_valid``: real row count for caller-pre-padded corpora."""
+    exact merge. The full (Q, N) score matrix never materializes."""
     q, d = queries.shape
     n = item_embs.shape[0]
-    if n_valid is None:
-        n_valid = n
     bs = min(block_size, n)
     n_blocks = -(-n // bs)
     pad = n_blocks * bs - n
@@ -112,7 +95,7 @@ def _scan_topk(
         block = jax.lax.dynamic_slice(items, (start, 0), (bs, d))
         scores = _score(queries, block.T, precision)  # (Q, bs)
         cols = start + jnp.arange(bs, dtype=jnp.int32)
-        scores = jnp.where(cols[None, :] < n_valid, scores, -jnp.inf)
+        scores = jnp.where(cols[None, :] < n, scores, -jnp.inf)
 
         bvals, bsel = fast_topk(scores, block_k, recall_target)
         bidx = cols[bsel]
@@ -131,9 +114,13 @@ def _scan_topk(
     return vals, idxs
 
 
-_REDUCE_CHUNK = 16384  # exact PartialReduce is fast up to ~16k-wide rows
+# Tuned on the previous accelerator, not yet measured on the H100:
+_REDUCE_CHUNK = 16384  # widest row one exact top-k reduces in a single pass
 _WINDOW = 64           # items per window in the window-max exact scheme
 _SCORE_BUDGET = 320 * 1024 * 1024  # max Q*N f32 score entries per column chunk
+# mips_topk_window_auto sizes its window so the final exact top-k sees about
+# this many window maxima per query (same provenance)
+_WINDOW_TARGET_CAND = 16384
 
 
 def canonical_tie_order(vals: jnp.ndarray, idxs: jnp.ndarray):
@@ -149,7 +136,7 @@ def canonical_tie_order(vals: jnp.ndarray, idxs: jnp.ndarray):
     element-identical (and identical to numpy's stable ``argsort(-s)``)
     wherever the returned SETS agree; only distinct items tying exactly at
     the k-th score remain set-ambiguous — values are still identical there.
-    O(k log k) per row on the already-selected candidates (~µs at k=500).
+    O(k log k) per row on the already-selected candidates.
     """
     order = jnp.lexsort((idxs, -vals), axis=-1)
     return (jnp.take_along_axis(vals, order, axis=-1),
@@ -157,10 +144,9 @@ def canonical_tie_order(vals: jnp.ndarray, idxs: jnp.ndarray):
 
 
 def _chunked_exact_reduce(scores, k: int):
-    """Exact top-k along the last axis, avoiding the PartialReduce wide-row
-    cliff: reduce in <=16k-wide chunks, then exact-merge the chunk winners
-    (recursing while the merge row is itself too wide). Measured on a v5e:
-    a single exact reduce at 65k-wide costs ~9 ms vs ~0.4 ms per 16k chunk."""
+    """Exact top-k along the last axis: reduce in <=``_REDUCE_CHUNK``-wide
+    chunks, then exact-merge the chunk winners (recursing while the merge
+    row is itself too wide)."""
     q, w = scores.shape
     if w <= _REDUCE_CHUNK:
         return fast_topk(scores, k, 1.0)
@@ -176,11 +162,24 @@ def _chunked_exact_reduce(scores, k: int):
     return mv, jnp.take_along_axis(gi, ms, axis=1)
 
 
+def _window_maxima(scores, window: int):
+    """Cut each score row into contiguous windows of ``window`` columns
+    (the tail window is ``-inf``-padded) → the (Q, n_win, window) view and
+    the per-window maxima (Q, n_win)."""
+    q, w = scores.shape
+    n_win = -(-w // window)
+    pad = n_win * window - w
+    if pad:
+        scores = jnp.pad(scores, ((0, 0), (0, pad)), constant_values=-jnp.inf)
+    s3 = scores.reshape(q, n_win, window)
+    return s3, jnp.max(s3, axis=-1)
+
+
 def _windowed_exact_topk(scores, k: int):
     """Exact top-k over a wide score matrix via window-max pruning.
 
     The row is cut into W windows of L=64 columns; per-window maxima come
-    from one cheap ``reduce_window`` pass. The top-k items occupy at most k
+    from one cheap max pass (:func:`_window_maxima`). The top-k items occupy at most k
     distinct windows and every window holding one has window-max >= the
     true k-th score, so the exact top-``wpad`` (>=k) windows BY MAX are
     guaranteed to contain the entire true top-k (ties included — see
@@ -189,8 +188,7 @@ def _windowed_exact_topk(scores, k: int):
     fallback is needed: the result is exact by construction, for any input.
 
     This replaces the reference's IVF pruning (faiss_index.py:68-74,113)
-    with a recall-1.0 pruned scan: ~25x faster than a full-width exact
-    reduce at (256, 1M) on one v5e.
+    with a recall-1.0 pruned scan.
     """
     q, w = scores.shape
     L = _WINDOW
@@ -209,15 +207,10 @@ def _windowed_exact_topk(scores, k: int):
                 n_win,
             )
         return _chunked_exact_reduce(scores, k)
-    pad = n_win * L - w
-    if pad:
-        scores = jnp.pad(scores, ((0, 0), (0, pad)), constant_values=-jnp.inf)
-    wmax = jax.lax.reduce_window(scores, -jnp.inf, jax.lax.max,
-                                 (1, L), (1, L), "VALID")      # (Q, n_win)
+    s3, wmax = _window_maxima(scores, L)                       # (Q, n_win)
     _, widx = _chunked_exact_reduce(wmax, wpad)
     widx = widx.astype(jnp.int32)
-    slab = jnp.take_along_axis(scores.reshape(q, n_win, L),
-                               widx[:, :, None], axis=1)       # (Q, wpad, L)
+    slab = jnp.take_along_axis(s3, widx[:, :, None], axis=1)   # (Q, wpad, L)
     mv, ms = _chunked_exact_reduce(slab.reshape(q, wpad * L), k)
     win = jnp.take_along_axis(widx, ms // L, axis=1)
     return mv, win * L + (ms % L)
@@ -307,8 +300,8 @@ def _verified_topk(
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Two-pass exact top-k with a machine-checked proof.
 
-    Pass A: a recall-targeted PartialReduce prefilter selects m=oversample*k
-    candidates per query (the fast O(N) path — no exact-reduce cliff).
+    Pass A: a recall-targeted top-k prefilter selects m=oversample*k
+    candidates per query.
     Pass B: with tau = the k-th candidate's TRUE score (approx_max_k returns
     real scores of real items, it only ever *misses* items), count every
     corpus item scoring strictly above tau. The candidate top-k is exact iff
@@ -349,7 +342,7 @@ def _verified_topk(
 # fast path: inputs rounded to bf16 (round-to-nearest, unit roundoff u=2^-8)
 # give per-product relative error <= 2u+u^2 ~= 2^-7 of |q_i||c_i|, summed and
 # Cauchy-Schwarz'd to ||q||*||c||; bf16xbf16 products are exact in f32 and the
-# MXU accumulates in f32 (error <= d*2^-24*||q||*||c||, absorbed — with the
+# matmul accumulates in f32 (error <= d*2^-24*||q||*||c||, absorbed — with the
 # norm-computation rounding — into the 1.25 safety factor).
 _BOUND_C = 1.25 * 2.0 ** -7
 
@@ -363,7 +356,7 @@ def _bound_verified_topk(
     """One cheap full pass + tiny exact rescore, with a rounding-error proof.
 
     Pass A scores the WHOLE corpus once at bf16 input precision (the fast
-    single-pass MXU matmul — ~6x cheaper than the HIGHEST-precision scan)
+    single-pass bf16 matmul, far cheaper than the HIGHEST-precision scan)
     and selects the exact top-``m`` OF THOSE bf16 SCORES via the windowed
     pruned selection. Every non-candidate item's bf16 score is then <= theta
     (the m-th candidate's bf16 score), so its TRUE f32 score is <= theta +
@@ -500,15 +493,9 @@ def mips_topk_certified(
     candidates, certified by a rigorous rounding-error bound, with NO
     HIGHEST-precision full-corpus matmul at all.
 
-    DEPRECATED-BY-MEASUREMENT: 'bound' loses to 'count' at EVERY measured
-    shape, including its hypothesized home turf — round-4 sweep at
-    constant corpus bytes (scripts/bound_turf.py, bound_turf.json):
-    count/bound QPS = 43.3k/3.7k at 262k×128, 46.0k/7.4k at 65k×512,
-    60.9k/6.6k at 32k×1024. Its certificate fires 100% of the time (the
-    math is sound) but the (Q, m, D) candidate gather + batched mat-vec
-    rescore is MXU-hostile and the windowed count pass it avoids is cheap
-    even at d=1024. Kept as API surface and as the only certified path
-    usable on a corpus stored ONLY in bf16; use 'count' everywhere else.
+    Kept as API surface and as the only certified path usable on a corpus
+    stored ONLY in bf16; its speed against 'count' is not yet measured on
+    the H100.
 
     Only when ANY query's certificate fails is the whole batch recomputed
     through the windowed exact path. The escalation is a ``lax.cond``
@@ -546,7 +533,7 @@ def mips_topk_certified(
     return canonical_tie_order(*out) if canonical else out
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6))
+@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
 def mips_topk(
     queries: jnp.ndarray,
     item_embs: jnp.ndarray,
@@ -554,7 +541,6 @@ def mips_topk(
     block_size: int = 4096,
     mode: str = "exact",
     canonical: bool = False,
-    n_valid: int | None = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Top-k over the item corpus.
 
@@ -567,13 +553,12 @@ def mips_topk(
         mode: 'exact' — always returns the true top-k w.r.t. f32 scores
             (precision=HIGHEST matmul), via window-max pruned selection —
             exact by construction at any corpus size, no recall knob.
-            'approx' — recall-0.95 partial reduce at default (fast bf16)
+            'approx' — recall-0.95 ``approx_max_k`` at default (fast)
             matmul precision.
         canonical: reorder score-tied items into the deterministic
             (value desc, index asc) order (see
-            :func:`canonical_tie_order`). Off by default: TPU sorts are
-            slow (the lexsort costs ~1.4 ms at (256, 500) — 2x the entire
-            ML-1M exact scan), and any tie completion is equally exact;
+            :func:`canonical_tie_order`). Off by default: the lexsort is an
+            extra sort per call and any tie completion is equally exact;
             turn on where cross-path element-identity matters (tests,
             sharded-vs-single-device checks, reproducibility audits).
 
@@ -582,16 +567,9 @@ def mips_topk(
     """
     q, d = queries.shape
     n = item_embs.shape[0]
-    if n_valid is not None and not (0 < n_valid <= n):
-        raise ValueError(f"n_valid={n_valid} out of range for N={n}")
-    if k > (n if n_valid is None else n_valid):
-        raise ValueError(f"k={k} exceeds corpus size {n_valid or n}")
+    if k > n:
+        raise ValueError(f"k={k} exceeds corpus size {n}")
     if mode == "exact":
-        if n_valid is not None and n_valid < n:
-            # the exact window-max path has no pad mask; score the real
-            # rows only (slice is static; callers on the exact path keep
-            # un-padded corpora, so this is a test/fallback convenience)
-            item_embs = item_embs[:n_valid]
         vals, idx = _exact_topk(queries, item_embs, k)
         return canonical_tie_order(vals, idx) if canonical else (vals, idx)
     if mode != "approx":
@@ -603,8 +581,8 @@ def mips_topk(
     bs = min(block_size, n)
     dense_limit = 512 * 1024 * 1024
     if n <= max(bs, k) or q * n <= dense_limit:
-        return mips_topk_dense(queries, item_embs, k, 0.95, n_valid)
-    return _scan_topk(queries, item_embs, k, bs, 0.95, None, n_valid)
+        return mips_topk_dense(queries, item_embs, k, 0.95)
+    return _scan_topk(queries, item_embs, k, bs, 0.95)
 
 
 def _quantize_queries(queries):
@@ -618,7 +596,7 @@ def _quantize_queries(queries):
 
 
 def _score_int8(q_i8, q_scale, block_i8, s_blk):
-    """int8 x int8 -> int32 MXU matmul, magnitudes restored from the outer
+    """int8 x int8 -> int32 matmul, magnitudes restored from the outer
     product of the per-row scale vectors."""
     raw = jax.lax.dot_general(
         q_i8, block_i8,
@@ -667,7 +645,7 @@ def _exact_topk_int8(q_i8, q_scale, items_i8, item_scales, k):
     return vals, idxs
 
 
-@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6, 7))
+@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6))
 def mips_topk_int8(
     queries: jnp.ndarray,       # (Q, D) f32
     items_i8: jnp.ndarray,      # (N, D) int8 (per-row symmetric quant)
@@ -676,34 +654,27 @@ def mips_topk_int8(
     block_size: int = 4096,
     mode: str = "exact",
     canonical: bool = False,
-    n_valid: int | None = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Top-k over an int8-quantized corpus.
 
     Queries are round-to-nearest quantized per row on the fly, the score
-    is an int8 x int8 -> int32 matmul on the MXU, and magnitudes are
-    restored with the outer product of the two scale vectors. 4x less HBM
-    traffic than the f32 scan; ranking error is bounded by the per-row
-    quantization step (measured recall@500 >= 0.98 on normalized towers).
+    is an int8 x int8 -> int32 matmul, and magnitudes are restored with
+    the outer product of the two scale vectors. 4x less HBM traffic than
+    the f32 scan; ranking error is bounded by the per-row quantization
+    step.
 
     'exact' mode selects the true top-k OF THE INT8 SCORES via the same
     windowed pruning as the f32 exact path; 'approx' streams blocks
-    through the recall-0.95 PartialReduce.
+    through the recall-0.95 ``approx_max_k``.
     """
     q, d = queries.shape
     n = items_i8.shape[0]
-    if n_valid is not None and not (0 < n_valid <= n):
-        raise ValueError(f"n_valid={n_valid} out of range for N={n}")
-    if k > (n if n_valid is None else n_valid):
-        raise ValueError(f"k={k} exceeds corpus size {n_valid or n}")
+    if k > n:
+        raise ValueError(f"k={k} exceeds corpus size {n}")
 
     q_i8, q_scale = _quantize_queries(queries)
 
     if mode != "approx":
-        if n_valid is not None and n_valid < n:
-            # exact path: score the real rows only (static slice)
-            items_i8 = items_i8[:n_valid]
-            item_scales = item_scales[:n_valid]
         vals, idx = _exact_topk_int8(q_i8, q_scale, items_i8, item_scales, k)
         return canonical_tie_order(vals, idx) if canonical else (vals, idx)
 
@@ -721,9 +692,7 @@ def mips_topk_int8(
         s_blk = jax.lax.dynamic_slice(scales, (start,), (bs,))
         scores = _score_int8(q_i8, q_scale, block, s_blk)
         cols = start + jnp.arange(bs, dtype=jnp.int32)
-        scores = jnp.where(
-            cols[None, :] < (n if n_valid is None else n_valid),
-            scores, -jnp.inf)
+        scores = jnp.where(cols[None, :] < n, scores, -jnp.inf)
         bvals, bsel = fast_topk(scores, block_k, 0.95)
         bidx = cols[bsel]
         cand_vals = jnp.concatenate([vals, bvals], axis=1)
@@ -741,6 +710,134 @@ def mips_topk_int8(
         return vals, idxs
     (vals, idxs), _ = jax.lax.scan(body, init, jnp.arange(n_blocks))
     return vals, idxs
+
+
+def _window_argmax(scores, window: int):
+    """Per-window maxima and first-occurrence in-window argmax of each score
+    row: (Q, N) → ((Q, n_win) f32, (Q, n_win) int32)."""
+    s3, wmax = _window_maxima(scores, window)
+    return wmax, jnp.argmax(s3, axis=-1).astype(jnp.int32)
+
+
+@functools.partial(jax.jit, static_argnames=("k", "window"))
+def mips_topk_window(
+    queries: jnp.ndarray,
+    item_embs: jnp.ndarray,
+    k: int,
+    window: int = 64,
+    scales: jnp.ndarray | None = None,
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Window-segment MIPS top-k (the ``MIPSIndex(mode="fused")`` engine).
+
+    The corpus is cut into contiguous windows of ``window`` items. Each
+    query scores every item at default matmul precision, keeps each
+    window's maximum and its first-occurrence position, then takes the
+    exact top-k over the N/W window maxima. A top-k item is lost only when
+    a larger top-k item shares its window, so the expected recall is the
+    bin model ≈ 1 − (k−1)·W/(2N) (``window=1`` is exact). The column
+    chunking bounds the live score slab like :func:`_exact_topk`.
+
+    Args:
+        queries: (Q, D) float queries.
+        item_embs: (N, D) corpus: float32, bfloat16 (queries are cast to
+            bf16 and accumulate in f32), or int8 with ``scales``.
+        scales: (N,) f32 per-row dequantization scales of an int8 corpus
+            (``ops.quantize``); the scores are then the int8 x int8 scores
+            of :func:`mips_topk_int8`.
+
+    Returns (values (Q, k), indices (Q, k)), sorted descending.
+    """
+    q = queries.shape[0]
+    n = item_embs.shape[0]
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if k > -(-n // window):
+        raise ValueError(
+            f"k={k} exceeds candidate count {-(-n // window)} "
+            f"(N={n}, window={window}); lower `window`"
+        )
+    if scales is not None:
+        if scales.shape[0] != n:
+            raise ValueError("scales length mismatch")
+        q_i8, q_scale = _quantize_queries(queries.astype(jnp.float32))
+
+        def score(block, s_blk):
+            return _score_int8(q_i8, q_scale, block, s_blk)
+    else:
+        qv = queries.astype(
+            jnp.bfloat16 if item_embs.dtype == jnp.bfloat16 else jnp.float32)
+
+        def score(block, _):
+            return _score(qv, block.T, None)
+
+    chunk = max(_REDUCE_CHUNK,
+                (_SCORE_BUDGET // q) // _REDUCE_CHUNK * _REDUCE_CHUNK)
+    chunk = max(window, chunk // window * window)
+    if n <= chunk:
+        scores = score(item_embs, scales)
+        wmax, warg = _window_argmax(scores, window)
+    else:
+        n_chunks = -(-n // chunk)
+        pad = n_chunks * chunk - n
+        d = item_embs.shape[1]
+        items = jnp.pad(item_embs, ((0, pad), (0, 0))) if pad else item_embs
+        if scales is not None and pad:
+            scales = jnp.pad(scales, (0, pad))
+
+        def body(_, blk):
+            start = blk * chunk
+            block = jax.lax.dynamic_slice(items, (start, 0), (chunk, d))
+            s_blk = (None if scales is None
+                     else jax.lax.dynamic_slice(scales, (start,), (chunk,)))
+            cols = start + jnp.arange(chunk, dtype=jnp.int32)
+            scores = jnp.where(cols[None, :] < n, score(block, s_blk),
+                               -jnp.inf)
+            return None, _window_argmax(scores, window)
+
+        _, (wmax, warg) = jax.lax.scan(body, None, jnp.arange(n_chunks))
+        # (n_chunks, Q, chunk/W) → (Q, n_chunks*chunk/W): column c is the
+        # global window id c
+        wmax = wmax.transpose(1, 0, 2).reshape(q, -1)
+        warg = warg.transpose(1, 0, 2).reshape(q, -1)
+    vals, sel = _chunked_exact_reduce(wmax, k)
+    idx = sel * window + jnp.take_along_axis(warg, sel, axis=1)
+    return vals, idx.astype(jnp.int32)
+
+
+def window_for(n: int, k: int) -> int:
+    """Window size :func:`mips_topk_window_auto` uses for an ``n``-row
+    corpus: the power of two that leaves at most ``_WINDOW_TARGET_CAND``
+    window maxima per query, clamped to [8, 512], then halved until the
+    candidates cover ``max(k, 4·window)``. Below 8 the caller scans
+    exactly. The recall model ≈ 1 − (k−1)·W/(2N) improves with N at a
+    fixed N/W."""
+    ratio = -(-n // _WINDOW_TARGET_CAND)
+    window = 1 << max(0, ratio - 1).bit_length()
+    window = max(8, min(512, window))
+    while window > 1 and n // window < max(k, 4 * window):
+        window //= 2
+    return window
+
+
+def mips_topk_window_auto(
+    queries: jnp.ndarray,
+    item_embs: jnp.ndarray,
+    k: int,
+    scales: jnp.ndarray | None = None,
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """``MIPSIndex(mode="fused")`` entry: sizes the window from the corpus
+    (:func:`window_for`) and runs :func:`mips_topk_window`; corpora too
+    small for a window of 8 take the exact scan (recall 1.0). With
+    ``scales`` the corpus is int8. Shape logic is Python on static
+    shapes, so it is safe under jit."""
+    window = window_for(item_embs.shape[0], k)
+    if window < 8:
+        if scales is not None:
+            return mips_topk_int8(queries, item_embs, scales, k, 4096,
+                                  "exact")
+        return mips_topk(queries, item_embs.astype(jnp.float32), k, 4096,
+                         "exact")
+    return mips_topk_window(queries, item_embs, k, window, scales)
 
 
 def mips_topk_numpy(queries, item_embs, k: int):

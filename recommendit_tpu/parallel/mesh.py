@@ -1,10 +1,10 @@
 """Device mesh + distributed initialization.
 
 The reference is single-process/single-device (SURVEY.md §2: no
-torch.distributed anywhere); scaling here is green-field TPU-native:
+torch.distributed anywhere); scaling here is green-field:
 ``jax.distributed`` for multi-host process groups, a ``jax.sharding.Mesh``
-with named axes ``('data', 'model')`` over the pod slice, and XLA
-collectives over ICI inserted by ``jit``/``shard_map`` from sharding
+with named axes ``('data', 'model')`` over the devices, and XLA
+collectives over the device interconnect inserted by ``jit``/``shard_map`` from sharding
 annotations.
 
 Axis semantics:

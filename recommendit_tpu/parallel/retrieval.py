@@ -48,7 +48,7 @@ def _allgather_merge(queries, items_shard, k, block_size, axis, canonical):
     # canonical=True: score-tied items across shards come back in the same
     # (value desc, index asc) order as mips_topk(canonical=True) — real
     # corpora produce exact f32 score ties (ops/topk.py
-    # canonical_tie_order docstring); off by default, TPU sorts are slow
+    # canonical_tie_order docstring); off by default: it is an extra sort
     return canonical_tie_order(mvals, midx) if canonical else (mvals, midx)
 
 

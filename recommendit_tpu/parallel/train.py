@@ -28,7 +28,7 @@ from recommendit_tpu.models.two_tower import (
     item_tower_from_embed,
     user_tower_from_embed,
 )
-from recommendit_tpu.ops.bpr import in_batch_bpr_loss_xla
+from recommendit_tpu.ops.bpr import in_batch_bpr_loss
 from recommendit_tpu.parallel.embedding import sharded_dual_lookup
 from recommendit_tpu.parallel.mesh import DATA_AXIS, params_shardings
 
@@ -46,7 +46,7 @@ def make_sharded_train_step(
     tx: optax.GradientTransformation,
     genre_table: jnp.ndarray,
     dropout_rate: float = 0.0,
-    loss_fn: Callable = in_batch_bpr_loss_xla,
+    loss_fn: Callable = in_batch_bpr_loss,
 ) -> Callable:
     """Build the jitted distributed train step.
 

@@ -16,7 +16,7 @@ import json
 import logging
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -58,6 +58,9 @@ class PipelineOrchestrator:
         self.synthetic = synthetic
         self.eval_users = eval_users
         self.stage_times: Dict[str, float] = {}
+        # each stage's return value (e.g. the embeddings stage's per-epoch
+        # history), for callers that check a run beyond its artifacts
+        self.stage_results: Dict[str, Any] = {}
         self._data: Optional[MovieLensData] = None
         # remap artifact paths into models_dir; respect_cfg_paths=True
         # keeps any path the caller set away from its Settings default
@@ -81,6 +84,7 @@ class PipelineOrchestrator:
         out = fn()
         dt = time.time() - t0
         self.stage_times[name] = dt
+        self.stage_results[name] = out
         logger.info("=== stage %s done in %.2fs ===", name, dt)
         return out
 
@@ -168,7 +172,7 @@ class PipelineOrchestrator:
         crashed run continues instead of restarting, SURVEY.md §5.3/§5.4)."""
         data = self._train_view()
         if self.cfg.HOST_TABLE:
-            # >HBM-scale path: embedding tables live in host RAM/memmap,
+            # beyond-device-memory path: tables live in host RAM/memmap,
             # only batch rows ship to the device (training/host_train.py)
             from recommendit_tpu.training.host_train import (
                 HostTableEmbeddingTrainer,
@@ -180,7 +184,7 @@ class PipelineOrchestrator:
             )
             model = trainer.train()
             if model is None:
-                # true >HBM scale: no in-HBM model artifact exists — keep
+                # tables beyond device memory: no model artifact exists — keep
                 # the trainer so run_index can stream the catalog through
                 # embed_catalog instead of loading EMBEDDING_MODEL_PATH
                 self._host_trainer = trainer
@@ -212,7 +216,7 @@ class PipelineOrchestrator:
         )
         ht = getattr(self, "_host_trainer", None)
         if ht is not None:
-            # >HBM host-table run: stream the catalog through the device
+            # host-table run: stream the catalog through the device
             # MLP head chunk-by-chunk; the table never goes on device
             bias = ht._dense.get("item_bias")
             builder.build(
@@ -437,6 +441,9 @@ def main(argv=None):
     parser.add_argument("--log-level", default=None)
     args = parser.parse_args(argv)
 
+    from recommendit_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     cfg = default_settings
     if args.epochs:
         cfg = cfg.replace(TRAIN_EPOCHS=args.epochs)

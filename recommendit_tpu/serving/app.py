@@ -372,6 +372,9 @@ def make_handler(app: RecommendItApp):
 
 def serve(app: Optional[RecommendItApp] = None, host: Optional[str] = None,
           port: Optional[int] = None) -> None:
+    from recommendit_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     cfg = default_settings
     app = app or create_app(cfg=cfg)
     host = host or cfg.API_HOST

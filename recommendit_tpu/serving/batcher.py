@@ -1,6 +1,6 @@
-"""Request micro-batcher for TPU serving.
+"""Request micro-batcher for accelerator serving.
 
-Single-request dispatch wastes the MXU (a batch-1 serve call costs nearly
+Single-request dispatch wastes the device (a batch-1 serve call costs nearly
 the same device time as batch-256). The micro-batcher coalesces concurrent
 HTTP requests into one fused `serve_batch` device call: requests enqueue,
 the dispatch thread drains the queue every `max_wait_ms` or as soon as

@@ -50,8 +50,7 @@ from recommendit_tpu.models.two_tower import (
     user_tower_from_embed,
 )
 from recommendit_tpu.ops.bpr import (
-    in_batch_bpr_loss_xla,
-    in_batch_bpr_pallas,
+    in_batch_bpr_loss,
     in_batch_softmax_loss,
     pairwise_bpr_loss,
 )
@@ -168,7 +167,6 @@ class HostTableEmbeddingTrainer:
     def _make_step(self, tx):
         cfg = self.cfg
         loss_mode = self.loss_mode
-        use_pallas = cfg.USE_PALLAS and jax.devices()[0].platform == "tpu"
         cdt = jnp.bfloat16 if cfg.COMPUTE_DTYPE == "bfloat16" else None
 
         def loss_from_rows(dense, rows, batch):
@@ -187,9 +185,7 @@ class HostTableEmbeddingTrainer:
                     ue, ie, batch["log_q"], cfg.SOFTMAX_TEMPERATURE,
                     item_bias=jnp.take(dense["item_bias"], batch["i_ids"]),
                 )
-            if use_pallas:
-                return in_batch_bpr_pallas(ue, ie)
-            return in_batch_bpr_loss_xla(ue, ie)
+            return in_batch_bpr_loss(ue, ie)
 
         return make_host_offload_step(loss_from_rows, tx=tx)
 

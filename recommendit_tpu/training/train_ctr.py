@@ -11,7 +11,7 @@ LightGBM over frozen candidates, SURVEY.md §3.1); here ranking gradients
 flow into the same embedding rows the retrieval towers read — the
 "end-to-end two-stage" stretch configuration.
 
-TPU shape discipline mirrors ``train_embeddings.EmbeddingTrainer``: each
+Shape discipline mirrors ``train_embeddings.EmbeddingTrainer``: each
 epoch is ONE jitted ``lax.scan`` over a device-resident (n_batches, B, ...)
 stack — no per-batch Python dispatch.
 """
@@ -131,8 +131,7 @@ class CTRTrainer:
     def _make_sparse_epoch_fn(self, tx):
         """Rows-boundary epoch: the dense table gradient never exists —
         grads flow to the GATHERED rows, the table updates via the mixed
-        per-field row-adagrad (``ops.sparse_embed``; 215x the dense step
-        at Criteo-ish table scale on a v5e)."""
+        per-field row-adagrad (``ops.sparse_embed``)."""
         cfg = self.cfg
         joint = self.joint
         n_user_fields = self.data.n_user_fields

@@ -3,7 +3,7 @@
 The reference has only hand-rolled wall-clock timing (SURVEY.md §5.1:
 ``LatencyTracker`` + ``_timed``). Here that surface is kept
 (``recommendit_tpu.utils.latency``, orchestrator ``_timed``) and extended
-with the TPU-native tool: ``jax.profiler`` device traces viewable in
+with the JAX-native tool: ``jax.profiler`` device traces viewable in
 TensorBoard/Perfetto, plus a lightweight device-time measurement helper for
 kernel benchmarking.
 """

@@ -94,7 +94,7 @@ class TestPipelineIntegration:
         tmp = tmp_path_factory.mktemp("batcher")
         cfg = Settings(
             EMBEDDING_DIM=16, HIDDEN_DIM=32, BATCH_SIZE=128, TRAIN_EPOCHS=2,
-            RANKER_EPOCHS=3, USE_PALLAS=False, SEED=0, TOP_K_CANDIDATES=50,
+            RANKER_EPOCHS=3, SEED=0, TOP_K_CANDIDATES=50,
         )
         orch = PipelineOrchestrator(
             cfg=cfg, data_dir=str(tmp / "ml"), models_dir=str(tmp / "m"),
@@ -150,21 +150,28 @@ class TestBackpressureAndDeadlines:
         from recommendit_tpu.serving.batcher import MicroBatcher, QueueFullError
 
         release = threading.Event()
+        entered = threading.Event()
 
         def slow_fn(ids):
+            entered.set()
             release.wait(5.0)
             return [i * 2 for i in ids]
 
         b = MicroBatcher(slow_fn, max_batch=2, max_wait_ms=1.0, max_queue=3)
         try:
-            # saturate: dispatch thread grabs up to 2, queue holds 3 more
+            # saturate: the dispatch thread blocks in slow_fn on the first
+            # request, then the queue takes 3 more
             threads = [
                 threading.Thread(target=lambda: b.submit(1, timeout=5.0))
-                for _ in range(5)
+                for _ in range(4)
             ]
-            for t in threads:
+            threads[0].start()
+            assert entered.wait(5.0)
+            for t in threads[1:]:
                 t.start()
-            time.sleep(0.3)  # let the queue fill
+            deadline = time.time() + 5.0
+            while not b._queue.full() and time.time() < deadline:
+                time.sleep(0.01)
             with pytest.raises(QueueFullError):
                 b.submit(99, timeout=5.0)
             assert b.requests_rejected == 1

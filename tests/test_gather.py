@@ -1,5 +1,5 @@
-"""Pallas DMA row-gather (`ops/gather.py`) — interpreter-mode correctness
-(the on-chip perf A/B vs XLA take is recorded in RESULTS.md round 4)."""
+"""Gather-friendly packed feature rows (``features/schema.pad_packed_width``):
+padding must not change the assembled features."""
 import jax.numpy as jnp
 import numpy as np
 
@@ -9,56 +9,6 @@ from recommendit_tpu.features.schema import (
     assemble_packed_np,
     pad_packed_width,
 )
-from recommendit_tpu.ops.gather import gather_rows, take_rows
-
-
-class TestGatherRows:
-    def test_matches_take(self):
-        rng = np.random.default_rng(0)
-        tbl = jnp.asarray(rng.normal(size=(5000, 23)), jnp.float32)
-        idx = jnp.asarray(rng.integers(0, 5000, size=(16, 37)), jnp.int32)
-        out = gather_rows(tbl, idx, 256, 8, True)
-        np.testing.assert_array_equal(
-            np.asarray(out), np.asarray(tbl)[np.asarray(idx)])
-
-    def test_1d_indices_and_width_aligned(self):
-        rng = np.random.default_rng(1)
-        tbl = jnp.asarray(rng.normal(size=(1000, 128)), jnp.float32)
-        idx = jnp.asarray(rng.integers(0, 1000, size=(300,)), jnp.int32)
-        out = gather_rows(tbl, idx, 128, 4, True)
-        np.testing.assert_array_equal(
-            np.asarray(out), np.asarray(tbl)[np.asarray(idx)])
-
-    def test_ragged_batch_padding(self):
-        """B not a multiple of the block: pad rows must be discarded."""
-        rng = np.random.default_rng(2)
-        tbl = jnp.asarray(rng.normal(size=(500, 16)), jnp.float32)
-        idx = jnp.asarray(rng.integers(0, 500, size=(131,)), jnp.int32)
-        out = gather_rows(tbl, idx, 128, 4, True)
-        assert out.shape == (131, 16)
-        np.testing.assert_array_equal(
-            np.asarray(out), np.asarray(tbl)[np.asarray(idx)])
-
-    def test_out_of_range_indices_clamp_like_take(self):
-        """Regression (round-4 advice #4): out-of-range indices must
-        clamp (jnp.take mode='clip') on every backend instead of
-        DMA-ing arbitrary HBM on TPU."""
-        rng = np.random.default_rng(4)
-        tbl = jnp.asarray(rng.normal(size=(200, 16)), jnp.float32)
-        idx = jnp.asarray([-5, 0, 199, 200, 10_000], jnp.int32)
-        expect = np.asarray(jnp.take(tbl, idx, axis=0, mode="clip"))
-        np.testing.assert_array_equal(
-            np.asarray(gather_rows(tbl, idx, 128, 4, True)), expect)
-        np.testing.assert_array_equal(
-            np.asarray(take_rows(tbl, idx)), expect)
-
-    def test_take_rows_cpu_fallback(self):
-        rng = np.random.default_rng(3)
-        tbl = jnp.asarray(rng.normal(size=(100, 8)), jnp.float32)
-        idx = jnp.asarray(rng.integers(0, 100, size=(4, 5)), jnp.int32)
-        np.testing.assert_array_equal(
-            np.asarray(take_rows(tbl, idx)),
-            np.asarray(tbl)[np.asarray(idx)])
 
 
 class TestPadPackedWidth:

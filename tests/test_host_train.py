@@ -18,7 +18,7 @@ from recommendit_tpu.models.two_tower import (
     item_tower_from_embed,
     user_tower_from_embed,
 )
-from recommendit_tpu.ops.bpr import in_batch_bpr_loss_xla
+from recommendit_tpu.ops.bpr import in_batch_bpr_loss
 from recommendit_tpu.training.host_train import HostTableEmbeddingTrainer
 
 
@@ -27,7 +27,7 @@ def _tiny_cfg(**kw):
         EMBEDDING_DIM=16, HIDDEN_DIM=24, BATCH_SIZE=64, TRAIN_EPOCHS=2,
         DROPOUT=0.0, WEIGHT_DECAY=0.0, LOSS_MODE="in_batch",
         HOST_TABLE=True, HOST_TABLE_OPTIMIZER="sgd", HOST_TABLE_LR=0.1,
-        HOST_TABLE_PREFETCH=0, USE_PALLAS=False, SEED=3,
+        HOST_TABLE_PREFETCH=0, SEED=3,
     )
     base.update(kw)
     return Settings(**base)
@@ -80,7 +80,7 @@ class TestOffloadMatchesInHBM:
                 dense, jnp.take(i_tab, i_ids, axis=0),
                 jnp.take(genre, i_ids, axis=0),
             )
-            return in_batch_bpr_loss_xla(ue, ie)
+            return in_batch_bpr_loss(ue, ie)
 
         @jax.jit
         def ref_step(dense, opt_state, u_tab, i_tab, u_ids, i_ids):

@@ -49,7 +49,7 @@ class TestTowers:
         tests/test_models.py:93-112)."""
         import optax
 
-        from recommendit_tpu.ops.bpr import in_batch_bpr_loss_xla
+        from recommendit_tpu.ops.bpr import in_batch_bpr_loss
 
         rng = np.random.default_rng(0)
         u_ids = jnp.asarray(rng.integers(1, 51, size=64))
@@ -64,7 +64,7 @@ class TestTowers:
             def loss_fn(p):
                 ue = user_tower(p, u_ids)
                 ie = item_tower(p, i_ids, genres)
-                return in_batch_bpr_loss_xla(ue, ie)
+                return in_batch_bpr_loss(ue, ie)
 
             loss, grads = jax.value_and_grad(loss_fn)(params)
             updates, opt_state = tx.update(grads, opt_state)
@@ -203,8 +203,8 @@ class TestMIPSIndex:
             assert str(re._embs.dtype) == "bfloat16"
 
     def test_fused_mode_self_retrieval(self, built):
-        """mode='fused' routes through the Pallas kernel (interpret on CPU)
-        and still self-retrieves."""
+        """mode='fused' routes through the window engine (exact scan at
+        this corpus size) and still self-retrieves."""
         _, embs, ids = built
         fused = MIPSIndex(embedding_dim=32, block_size=128, mode="fused")
         fused.build(embs, ids)
@@ -219,7 +219,7 @@ class TestEmbeddingTrainer:
 
         cfg = Settings(
             EMBEDDING_DIM=16, HIDDEN_DIM=32, BATCH_SIZE=128,
-            TRAIN_EPOCHS=3, USE_PALLAS=False, SEED=0,
+            TRAIN_EPOCHS=3, SEED=0,
         )
         trainer = EmbeddingTrainer(
             synthetic_data, cfg,
@@ -243,7 +243,7 @@ class TestEmbeddingTrainer:
         from recommendit_tpu.training.train_embeddings import EmbeddingTrainer
 
         cfg = Settings(EMBEDDING_DIM=8, HIDDEN_DIM=16, BATCH_SIZE=128,
-                       TRAIN_EPOCHS=4, USE_PALLAS=False, SEED=0)
+                       TRAIN_EPOCHS=4, SEED=0)
         t1 = EmbeddingTrainer(
             synthetic_data, cfg,
             model_output_path=str(tmp_path / "a.npz"),
@@ -269,7 +269,7 @@ class TestEmbeddingTrainer:
         from recommendit_tpu.training.train_embeddings import EmbeddingTrainer
 
         base = dict(EMBEDDING_DIM=8, HIDDEN_DIM=16, BATCH_SIZE=128,
-                    TRAIN_EPOCHS=2, USE_PALLAS=False, SEED=0, DROPOUT=0.0)
+                    TRAIN_EPOCHS=2, SEED=0, DROPOUT=0.0)
         t_epoch = EmbeddingTrainer(
             synthetic_data, Settings(**base),
             model_output_path=str(tmp_path / "e.npz"),
@@ -293,7 +293,7 @@ class TestEmbeddingTrainer:
         from recommendit_tpu.training.train_embeddings import EmbeddingTrainer
 
         base = dict(EMBEDDING_DIM=8, HIDDEN_DIM=16, BATCH_SIZE=128,
-                    TRAIN_EPOCHS=2, USE_PALLAS=False, SEED=0, DROPOUT=0.0)
+                    TRAIN_EPOCHS=2, SEED=0, DROPOUT=0.0)
         t_epoch = EmbeddingTrainer(
             synthetic_data, Settings(**base),
             model_output_path=str(tmp_path / "e.npz"),
@@ -316,7 +316,7 @@ class TestEmbeddingTrainer:
 
         cfg = Settings(
             EMBEDDING_DIM=8, HIDDEN_DIM=16, BATCH_SIZE=128,
-            TRAIN_EPOCHS=2, USE_PALLAS=False,
+            TRAIN_EPOCHS=2,
         )
         trainer = EmbeddingTrainer(
             synthetic_data, cfg, loss_mode="pairwise",

@@ -1,13 +1,12 @@
-"""Kernel correctness tests: Pallas/XLA BPR vs a literal python-loop
-reference, blocked MIPS top-k vs numpy argsort."""
+"""Kernel correctness tests: XLA BPR vs a literal python-loop reference
+and finite differences, blocked MIPS top-k vs numpy argsort."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from recommendit_tpu.ops.bpr import (
-    in_batch_bpr_loss_xla,
-    in_batch_bpr_pallas,
+    in_batch_bpr_loss,
     pairwise_bpr_loss,
 )
 from recommendit_tpu.ops.topk import (
@@ -44,30 +43,31 @@ class TestBPR:
 
     def test_xla_matches_loop(self, embs):
         u, v = embs
-        assert float(in_batch_bpr_loss_xla(u, v)) == pytest.approx(
+        assert float(in_batch_bpr_loss(u, v)) == pytest.approx(
             _loop_in_batch_bpr(u, v), abs=1e-5
         )
 
-    def test_pallas_matches_xla(self, embs):
+    def test_grad_matches_closed_form(self, embs):
+        """Autodiff equals the closed-form score gradient of the module
+        docstring: dL/ds_ij = sig(-m_ij)/(B(B-1)) off the diagonal,
+        dL/ds_ii = -sum_j of the row; du = G v, dv = G^T u."""
         u, v = embs
-        x = float(in_batch_bpr_loss_xla(u, v))
-        p = float(in_batch_bpr_pallas(u, v, 16, True))  # interpret mode on CPU
-        assert p == pytest.approx(x, abs=1e-5)
+        gu, gv = jax.grad(in_batch_bpr_loss, argnums=(0, 1))(u, v)
+        un, vn = np.asarray(u, np.float64), np.asarray(v, np.float64)
+        s = un @ vn.T
+        b = s.shape[0]
+        sig = 1.0 / (1.0 + np.exp(-(s - np.diag(s)[:, None])))
+        np.fill_diagonal(sig, 0.0)
+        g = sig / (b * (b - 1))
+        g -= np.diag(g.sum(axis=1))
+        np.testing.assert_allclose(np.asarray(gu), g @ vn, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(gv), g.T @ un, atol=1e-6)
 
-    def test_pallas_grad_matches_xla(self, embs):
-        u, v = embs
-        gx = jax.grad(in_batch_bpr_loss_xla, argnums=(0, 1))(u, v)
-        gp = jax.grad(
-            lambda a, b: in_batch_bpr_pallas(a, b, 16, True), argnums=(0, 1)
-        )(u, v)
-        np.testing.assert_allclose(gx[0], gp[0], atol=1e-5)
-        np.testing.assert_allclose(gx[1], gp[1], atol=1e-5)
-
-    def test_pallas_grad_numerical(self, embs):
-        """Finite-difference check of the closed-form backward."""
+    def test_grad_numerical(self, embs):
+        """Finite-difference check of the autodiff backward."""
         u, v = embs
         u, v = u[:8], v[:8]
-        f = lambda a: in_batch_bpr_pallas(a, v, 8, True)  # noqa: E731
+        f = lambda a: in_batch_bpr_loss(a, v)  # noqa: E731
         g = jax.grad(f)(u)
         eps = 1e-3
         rng = np.random.default_rng(0)
@@ -87,27 +87,13 @@ class TestBPR:
         aligned = float(pairwise_bpr_loss(u, u, -u))
         assert aligned < loss
 
-    def test_uneven_block_tail(self):
+    def test_odd_batch_matches_loop(self):
         rng = np.random.default_rng(3)
         u = jnp.asarray(rng.normal(size=(20, 8)), jnp.float32)
         v = jnp.asarray(rng.normal(size=(20, 8)), jnp.float32)
-        x = float(in_batch_bpr_loss_xla(u, v))
-        p = float(in_batch_bpr_pallas(u, v, 16, True))  # 20 = 16 + 4 tail
-        assert p == pytest.approx(x, abs=1e-5)
-
-    def test_uneven_block_tail_grad(self):
-        """Ragged batch takes the XLA-backward fallback (the fused bwd
-        requires block-divisible batches) — grads must still match."""
-        rng = np.random.default_rng(4)
-        u = jnp.asarray(rng.normal(size=(20, 8)), jnp.float32)
-        v = jnp.asarray(rng.normal(size=(20, 8)), jnp.float32)
-        gx = jax.grad(in_batch_bpr_loss_xla, argnums=(0, 1))(u, v)
-        gp = jax.grad(
-            lambda a, b: in_batch_bpr_pallas(a, b, 16, True),
-            argnums=(0, 1),
-        )(u, v)
-        np.testing.assert_allclose(gx[0], gp[0], atol=1e-5)
-        np.testing.assert_allclose(gx[1], gp[1], atol=1e-5)
+        assert float(in_batch_bpr_loss(u, v)) == pytest.approx(
+            _loop_in_batch_bpr(u, v), abs=1e-5
+        )
 
 
 class TestMIPSTopK:

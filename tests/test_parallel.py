@@ -8,7 +8,7 @@ import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from recommendit_tpu.models.two_tower import init_params, item_tower, user_tower
-from recommendit_tpu.ops.bpr import in_batch_bpr_loss_xla
+from recommendit_tpu.ops.bpr import in_batch_bpr_loss
 from recommendit_tpu.ops.topk import mips_topk_numpy
 from recommendit_tpu.parallel import (
     create_mesh,
@@ -129,7 +129,7 @@ class TestShardedTrainStep:
         def ref_loss(p):
             ue = user_tower(p, u_ids)
             ie = item_tower(p, i_ids, jnp.take(genre_table, i_ids, axis=0))
-            return in_batch_bpr_loss_xla(ue, ie)
+            return in_batch_bpr_loss(ue, ie)
 
         ref_l, ref_grads = jax.value_and_grad(ref_loss)(params)
 

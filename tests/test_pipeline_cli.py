@@ -69,6 +69,9 @@ class TestMissingArtifacts:
 class TestCLI:
     def test_main_features_stage(self, tmp_path, monkeypatch):
         monkeypatch.chdir(tmp_path)
+        # main() turns on the persistent compile cache; point it at a
+        # temp dir so the test process keeps its own settings
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
         main([
             "--stage", "data", "--synthetic",
             "--data-dir", str(tmp_path / "ml"),

@@ -13,7 +13,7 @@ def trained_artifacts(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("e2e")
     cfg = Settings(
         EMBEDDING_DIM=16, HIDDEN_DIM=32, BATCH_SIZE=128, TRAIN_EPOCHS=2,
-        RANKER_EPOCHS=4, RANKER_GROUP_SIZE=32, USE_PALLAS=False, SEED=0,
+        RANKER_EPOCHS=4, RANKER_GROUP_SIZE=32, SEED=0,
         TOP_K_CANDIDATES=50,
     )
     from recommendit_tpu.pipelines.run_pipeline import PipelineOrchestrator

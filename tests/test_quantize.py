@@ -1,5 +1,5 @@
-"""Int8 quantized retrieval: stochastic-rounding quantizers (jnp + Pallas
-interpret), the int8 MIPS scan, and MIPSIndex(dtype='int8') round-trips.
+"""Int8 quantized retrieval: the stochastic-rounding quantizer, the int8
+MIPS scan, and MIPSIndex(dtype='int8') round-trips.
 
 No reference equivalent (FAISS IVFFlat stores f32); strategy mirrors the
 repo's kernel tests: numpy/f32 exact search as the oracle, recall bounds
@@ -14,7 +14,6 @@ from recommendit_tpu.models.retrieval import MIPSIndex
 from recommendit_tpu.ops.quantize import (
     dequantize_int8,
     quantize_int8_jnp,
-    quantize_int8_pallas,
 )
 from recommendit_tpu.ops.topk import mips_topk_int8, mips_topk_numpy
 
@@ -54,24 +53,6 @@ class TestQuantizers:
         # RTN error bound: half a step
         err = jnp.abs(dequantize_int8(v1, s1) - x)
         assert float((err <= s1[:, None] * 0.5001).all())
-
-    def test_pallas_matches_scale_and_bound(self):
-        x = jnp.asarray(_normalized(300, 64, seed=2))
-        vj, sj = quantize_int8_jnp(x, jax.random.PRNGKey(0))
-        vp, sp = quantize_int8_pallas(x, seed=0, row_block=128,
-                                      interpret=True)
-        assert jnp.allclose(sp, sj, atol=1e-7)
-        err = jnp.abs(dequantize_int8(vp, sp) - x)
-        assert float((err <= sp[:, None] * 1.0001).all())
-
-    def test_pallas_seed_and_pad_determinism(self):
-        x = jnp.asarray(_normalized(257, 32, seed=3))
-        a1, s1 = quantize_int8_pallas(x, seed=7, row_block=64, interpret=True)
-        a2, _ = quantize_int8_pallas(x, seed=7, row_block=64, interpret=True)
-        b, _ = quantize_int8_pallas(x, seed=8, row_block=64, interpret=True)
-        assert jnp.array_equal(a1, a2)
-        assert not jnp.array_equal(a1, b)
-        assert a1.shape == (257, 32) and s1.shape == (257,)
 
 
 class TestInt8Search:
@@ -148,7 +129,7 @@ class TestInt8Index:
         st = idx.stats()
         assert st["dtype"] == "int8" and st["recall"] is None
         fn = idx.make_device_searcher(5)
-        vals, pos = fn(jnp.asarray(embs[:3]))
+        vals, pos = fn(jnp.asarray(embs[:3]), idx.device_corpus)
         assert vals.shape == (3, 5) and pos.shape == (3, 5)
 
     def test_bad_dtype_raises(self):

@@ -230,6 +230,53 @@ class TestQueryNorm:
             assert np.allclose(block.mean(axis=0), 0.0, atol=1e-4)
             assert np.allclose(block.std(axis=0), 1.0, atol=1e-3)
 
+    def test_constant_column_normalizes_to_zero(self):
+        """A column constant within each group (every user-level feature)
+        normalizes to exactly 0 whatever the row order, so no rounding
+        residue of its mean is blown up by the std floor; the other columns
+        still come out with mean 0 and std 1 per group."""
+        from recommendit_tpu.models.ranker import per_query_normalize
+
+        rng = np.random.default_rng(0)
+        n_q, group = 8, 500
+        q = np.repeat(np.arange(n_q), group)
+        X = rng.normal(3.0, 5.0, size=(n_q * group, 6)).astype(np.float32)
+        X[:, :3] = rng.normal(0.0, 7.0, size=(n_q, 3)).astype(np.float32)[q]
+        perm = rng.permutation(len(q))
+        for Xp, qp in ((X, q), (X[perm], q[perm])):
+            Xn = per_query_normalize(Xp, qp)
+            assert (Xn[:, :3] == 0.0).all()
+            for qid in range(n_q):
+                block = Xn[qp == qid, 3:]
+                assert np.allclose(block.mean(axis=0), 0.0, atol=1e-4)
+                assert np.allclose(block.std(axis=0), 1.0, atol=1e-3)
+
+    def test_device_scorer_constant_column_is_zero(self):
+        """On the device path a set-constant column contributes exactly
+        what any other constant does (its normalized value is 0), rows in
+        another order score the same, and the host path agrees."""
+        df = make_ranker_data(n_queries=6)
+        r = LambdaRankScorer(hidden_dims=(16,), epochs=2, group_size=32,
+                             seed=0, query_norm=True)
+        r.train(df, FEATURES, verbose_eval=100)
+        fn = r.make_device_scorer()
+        rng = np.random.default_rng(2)
+        base = rng.normal(size=(500, 10)).astype(np.float32)
+        ref = None
+        for _ in range(4):
+            cand = base.copy()
+            cand[:, :3] = rng.normal(0.0, 7.0, size=3).astype(np.float32)
+            out = np.asarray(fn(jnp.asarray(cand)))
+            if ref is None:
+                ref = out
+            np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+            perm = rng.permutation(len(cand))
+            np.testing.assert_allclose(
+                np.asarray(fn(jnp.asarray(cand[perm]))), out[perm],
+                rtol=0, atol=1e-5)
+            np.testing.assert_allclose(r.predict(cand), out, rtol=0,
+                                       atol=1e-4)
+
     def test_query_norm_train_predict_save_load(self, tmp_path):
         df = make_ranker_data()
         r = LambdaRankScorer(hidden_dims=(16,), epochs=5, group_size=32,
@@ -366,7 +413,7 @@ class TestCandidateFolds:
         )
         cfg = Settings(
             EMBEDDING_DIM=16, HIDDEN_DIM=32, BATCH_SIZE=128, TRAIN_EPOCHS=2,
-            USE_PALLAS=False, SEED=0, TOP_K_CANDIDATES=40,
+            SEED=0, TOP_K_CANDIDATES=40,
             RANKER_CAND_FOLDS=2, RANKER_LABEL_FRACTION=0.15,
             EMBEDDING_MODEL_PATH="",
         )

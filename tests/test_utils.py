@@ -93,13 +93,13 @@ class TestSettings:
     def test_env_override_types(self, monkeypatch):
         monkeypatch.setenv("TOP_K_CANDIDATES", "42")
         monkeypatch.setenv("LEARNING_RATE", "0.5")
-        monkeypatch.setenv("USE_PALLAS", "false")
+        monkeypatch.setenv("FILTER_SEEN", "false")
         monkeypatch.setenv("RANKER_HIDDEN_DIMS", "32,16")
         monkeypatch.setenv("MODEL_VERSION", "9.9.9")
         s = Settings.from_env(env_file="/nonexistent")
         assert s.TOP_K_CANDIDATES == 42
         assert s.LEARNING_RATE == 0.5
-        assert s.USE_PALLAS is False
+        assert s.FILTER_SEEN is False
         assert s.RANKER_HIDDEN_DIMS == (32, 16)
         assert s.MODEL_VERSION == "9.9.9"
 
